@@ -2,7 +2,7 @@
 # The Python package builds the library automatically on first import;
 # this Makefile exists for explicit/offline builds (SURVEY 2f parity).
 
-NATIVE_DIR := easyav1_tpu/native
+NATIVE_DIR := easyav1/native
 SO := $(NATIVE_DIR)/libeasyav1.so
 SRCS := $(NATIVE_DIR)/av1_tile.c $(NATIVE_DIR)/av1_recon.c \
         $(NATIVE_DIR)/av1_recon8.c $(NATIVE_DIR)/vorbis_dec.c

@@ -10,10 +10,10 @@ from typing import List
 
 import numpy as np
 
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.av1_enc import EncBlock, encode_frame, make_ivf
-from easyav1_tpu.video.av1.backend import AV1Backend
-from easyav1_tpu.container.webm import TrackInfo
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.av1_enc import EncBlock, encode_frame, make_ivf
+from easyav1.video.av1.backend import AV1Backend
+from easyav1.container.webm import TrackInfo
 
 from fixtures import CACHE, tool
 

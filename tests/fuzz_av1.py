@@ -15,7 +15,7 @@ import numpy as np
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/tests")
 
-from easyav1_tpu.video.av1 import constants as C
+from easyav1.video.av1 import constants as C
 from av1_synth import (EncBlock, assert_same, dav1d_decode_ivf, encode_frame,
                        make_ivf, my_decode_tu)
 
@@ -81,7 +81,7 @@ def rand_block(rng, r, c, size4, tx_select):
                 kw["tx_type"] = rng.choice([0, 1, 2, 3, 9, 10, 11])
             tx = C and None
             # number of luma tx blocks
-            from easyav1_tpu.video.av1 import tables as T
+            from easyav1.video.av1 import tables as T
             txs = T.MAX_TX_SIZE_RECT[bsize]
             for _ in range(depth):
                 txs = T.SPLIT_TX_SIZE[txs]

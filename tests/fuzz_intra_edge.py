@@ -12,7 +12,7 @@ sys.path.insert(0, "tests")
 sys.path.insert(0, ".")
 
 from fixtures import CACHE, tool  # noqa: E402
-from easyav1_tpu.video.av1 import constants as C  # noqa: E402
+from easyav1.video.av1 import constants as C  # noqa: E402
 from av1_synth import (EncBlock, dav1d_decode_ivf, encode_frame,  # noqa: E402
                        make_ivf, my_decode_tu, assert_same)
 

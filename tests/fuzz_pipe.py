@@ -21,7 +21,7 @@ import numpy as np
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/tests")
 
-from easyav1_tpu.video.av1 import constants as C  # noqa: E402
+from easyav1.video.av1 import constants as C  # noqa: E402
 from av1_synth import (EncBlock, dav1d_decode_ivf, encode_frame,  # noqa: E402
                        make_ivf, my_decode_tu)
 from fuzz_av1 import rand_block, rand_coeffs  # noqa: E402
@@ -67,7 +67,7 @@ def _frame_blocks(rng):
 
 
 def _decode_three_ways(tu, w, h, tag):
-    from easyav1_tpu import native
+    from easyav1 import native
 
     dav = dav1d_decode_ivf(make_ivf([tu], w, h), tag)[0]
     os.environ["EASYAV1_PIPE"] = "native"
@@ -99,7 +99,7 @@ def run_seed(seed, verbose=False):
                     sizes=(C.BLOCK_8X8, C.BLOCK_16X16, C.BLOCK_32X32))
         # run_case already asserts dav1d parity for the native path;
         # repeat through the pipe
-        from easyav1_tpu import native
+        from easyav1 import native
 
         os.environ["EASYAV1_PIPE"] = "pallas"
         native._PIPE_STATS.update(frames=0, fallbacks=0)

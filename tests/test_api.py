@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-import easyav1_tpu
-from easyav1_tpu import EasyAV1, init_from_filename, init_from_memory
-from easyav1_tpu.settings import EasyAV1Status, default_settings
+import easyav1
+from easyav1 import EasyAV1, init_from_filename, init_from_memory
+from easyav1.settings import EasyAV1Status, default_settings
 
 from fixtures import make_fixture, vorbis_oracle_decode, have_vorbis_oracle
-from easyav1_tpu.container import WebMDemuxer, TrackType
+from easyav1.container import WebMDemuxer, TrackType
 
 
 @pytest.fixture(scope="module")

@@ -23,12 +23,12 @@ import subprocess
 import numpy as np
 
 from fixtures import CACHE, tool
-from easyav1_tpu.container import TrackInfo
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.av1_enc import EncBlock, make_ivf
-from easyav1_tpu.video.av1.av1_enc_inter import (InterEncBlock,
+from easyav1.container import TrackInfo
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.av1_enc import EncBlock, make_ivf
+from easyav1.video.av1.av1_enc_inter import (InterEncBlock,
                                                  encode_inter_sequence)
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.video.av1.backend import AV1Backend
 
 W, H = 94, 98      # mi grid 24x26; visible 4px rows = 25 -> row 25 is
 #                    wholly sub-visible, chroma cell 13 is off-grid

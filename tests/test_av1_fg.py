@@ -7,7 +7,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
+from easyav1.video.av1 import constants as C
 from av1_synth import (EncBlock, assert_same, dav1d_decode_ivf, encode_frame,
                        make_ivf, my_decode_tu)
 from fixtures import CACHE, tool
@@ -116,8 +116,8 @@ def test_fg_real_stream():
     if not prefix.with_suffix(".yuv").exists():
         subprocess.run([str(tool("oracle")), str(out), str(prefix)],
                        check=True, capture_output=True)
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
     raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
     w, h = 160, 128
     cw, ch = 80, 64

@@ -28,8 +28,8 @@ def _roundtrip(cpu, w=96, h=96, frames=3):
     if not prefix.with_suffix(".yuv").exists():
         subprocess.run([str(tool("oracle")), str(out), str(prefix)],
                        check=True, capture_output=True)
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
     raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
     cw, ch = (w + 1) // 2, (h + 1) // 2
     per = w * h + 2 * cw * ch
@@ -67,7 +67,7 @@ def test_filter_intra_pallas_pipe(monkeypatch):
     """Filter-intra through the device pipe: the scan kernels run the
     4x2-patch recurrence as a sequential in-kernel loop (cls-9 units
     carry the filter mode); no C-recon fallback, bit-exact vs dav1d."""
-    from easyav1_tpu import native
+    from easyav1 import native
 
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")
     native._PIPE_STATS.update(frames=0, fallbacks=0)
@@ -82,9 +82,9 @@ def test_filter_intra_pallas_pipe_inter(monkeypatch):
     import hashlib
     import subprocess
 
-    from easyav1_tpu import native
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1 import native
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
 
     args_tail = ["w=128", "h=96", "fps=10", "frames=4", "gop=4",
                  "crf=30", "audio_secs=0", "cpu-used=4",

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from fixtures import CACHE, tool
-from easyav1_tpu.api import EasyAV1
+from easyav1.api import EasyAV1
 
 
 def fixture(tag, **kv):

@@ -14,8 +14,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1.backend import AV1Backend
 
 from fixtures import CACHE, tool
 

@@ -10,12 +10,12 @@ import subprocess
 import numpy as np
 import pytest
 
-from easyav1_tpu.container.webm import TrackInfo
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.av1_enc import EncBlock, make_ivf
-from easyav1_tpu.video.av1.av1_enc_inter import (InterEncBlock,
+from easyav1.container.webm import TrackInfo
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.av1_enc import EncBlock, make_ivf
+from easyav1.video.av1.av1_enc_inter import (InterEncBlock,
                                                  encode_inter_sequence)
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.video.av1.backend import AV1Backend
 
 from fixtures import CACHE, tool
 

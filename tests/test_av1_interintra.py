@@ -5,11 +5,11 @@ sys.path.insert(0,'tests'); sys.path.insert(0,'.')
 import numpy as np
 import fuzz_tmv_future as FZ
 from fixtures import CACHE, tool
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.av1_enc import make_ivf
-from easyav1_tpu.video.av1.av1_enc_inter import encode_ref_sequence, InterEncBlock
-from easyav1_tpu.container.webm import TrackInfo
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.av1_enc import make_ivf
+from easyav1.video.av1.av1_enc_inter import encode_ref_sequence, InterEncBlock
+from easyav1.container.webm import TrackInfo
+from easyav1.video.av1.backend import AV1Backend
 
 def run(seed, tag):
     rng = np.random.default_rng(seed)
@@ -36,7 +36,7 @@ def run(seed, tag):
                 if mode==C.NEWMV: b.mv=(2*int(rng.integers(-40,41)),2*int(rng.integers(-40,41)))
                 if rng.random()<0.5 and C.BLOCK_8X8<=bsz<=C.BLOCK_32X32:
                     b.interintra_mode=int(rng.integers(0,4))
-                    from easyav1_tpu.video.av1.wedge import wedge_allowed
+                    from easyav1.video.av1.wedge import wedge_allowed
                     if wedge_allowed(bsz) and rng.random()<0.5:
                         b.ii_wedge=1; b.ii_wedge_idx=int(rng.integers(0,16))
                 if not b.skip:

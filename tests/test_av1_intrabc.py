@@ -14,7 +14,7 @@ import pytest
 sys.path.insert(0, "tests")
 sys.path.insert(0, ".")
 
-from easyav1_tpu.video.av1 import constants as C  # noqa: E402
+from easyav1.video.av1 import constants as C  # noqa: E402
 from av1_synth import (EncBlock, dav1d_decode_ivf, encode_frame,  # noqa: E402
                        make_ivf, my_decode_tu, assert_same)
 
@@ -156,7 +156,7 @@ def test_intrabc_pallas_pipe(monkeypatch):
     dynamic slices of the partially reconstructed plane in the jax
     scan executor (two-stage bilinear taps resolved by the exporter);
     no C-recon fallback, bit-exact vs dav1d."""
-    from easyav1_tpu import native
+    from easyav1 import native
 
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")
     native._PIPE_STATS.update(frames=0, fallbacks=0)

@@ -19,8 +19,8 @@ from test_av1_inter_real import inter_fixture
 
 
 def _decode_all(path):
-    from easyav1_tpu.container import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1.container import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
 
     d = WebMDemuxer(str(path))
     vt = d.tracks_of_type(TrackType.VIDEO)[0]

@@ -36,8 +36,8 @@ def _roundtrip(w, h, frames, gop):
     if not prefix.with_suffix(".yuv").exists():
         subprocess.run([str(tool("oracle")), str(out), str(prefix)],
                        check=True, capture_output=True)
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
     raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
     cw, ch = (w + 1) // 2, (h + 1) // 2
     per = w * h + 2 * cw * ch
@@ -75,10 +75,10 @@ def test_lossless_coded_flag():
     """The crf=0 fixture must actually be coded_lossless (guards against
     libaom silently ignoring lossless=1 at crf>0)."""
     import numpy as np
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
-    from easyav1_tpu.video.av1 import constants as C
-    from easyav1_tpu.video.av1.headers import (split_obus,
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
+    from easyav1.video.av1 import constants as C
+    from easyav1.video.av1.headers import (split_obus,
                                                parse_sequence_header,
                                                HeaderParser)
     path = _fixture(96, 96, 3, 1)
@@ -109,8 +109,8 @@ def test_lossless_synth_multitx_cfl():
     >=16x16 blocks — i.e. coded_lossless streams."""
     import numpy as np
     from av1_synth import synth_compare
-    from easyav1_tpu.video.av1.av1_enc import EncBlock
-    from easyav1_tpu.video.av1 import constants as C
+    from easyav1.video.av1.av1_enc import EncBlock
+    from easyav1.video.av1 import constants as C
     blocks = []
     for r in range(0, 24, 8):
         for c in range(0, 24, 8):

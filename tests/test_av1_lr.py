@@ -5,7 +5,7 @@ decoder, compared bit-exact (spec §7.17, dav1d looprestoration)."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
+from easyav1.video.av1 import constants as C
 from av1_synth import (EncBlock, assert_same, dav1d_decode_ivf, encode_frame,
                        make_ivf, my_decode_tu)
 

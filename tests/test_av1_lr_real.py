@@ -5,8 +5,8 @@ import subprocess
 
 import numpy as np
 
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1.backend import AV1Backend
 
 from fixtures import CACHE, tool
 
@@ -78,7 +78,7 @@ def test_lr_real_pallas_pipe(monkeypatch):
     """Real libaom LR streams through the full device pipe: loop
     restoration runs device-resident (lr_jax.apply_device) after the
     device LF+CDEF, no C-recon fallback, bit-exact vs dav1d."""
-    from easyav1_tpu import native
+    from easyav1 import native
 
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")
     native._PIPE_STATS.update(frames=0, fallbacks=0)
@@ -89,7 +89,7 @@ def test_lr_real_pallas_pipe(monkeypatch):
 
 def test_lr_real_pallas_pipe_inter(monkeypatch):
     """Inter frames with LR through the jax MC device pipe."""
-    from easyav1_tpu import native
+    from easyav1 import native
 
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")
     native._PIPE_STATS.update(frames=0, fallbacks=0)

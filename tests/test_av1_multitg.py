@@ -12,10 +12,10 @@ import subprocess
 import numpy as np
 
 from fixtures import CACHE, tool
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.backend import AV1Backend
-from easyav1_tpu.video.av1.headers import split_obus
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.backend import AV1Backend
+from easyav1.video.av1.headers import split_obus
 
 
 def _fixture(w, h, frames, gop, n_tg, tile_cols=1, tile_rows=1):

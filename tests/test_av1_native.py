@@ -1,6 +1,6 @@
 """Native (C) tile decoder vs Python TileDecoder: plan equivalence.
 
-The C decoder (easyav1_tpu/native/av1_tile.c) must produce a FramePlan
+The C decoder (easyav1/native/av1_tile.c) must produce a FramePlan
 bit-identical to the Python reference on real libaom streams — every mi
 grid, block record, dequantized coefficient, lf tx and cdef index.
 The end-to-end dav1d conformance tests in test_av1_real.py then run on
@@ -10,13 +10,13 @@ top of whichever path the backend picks.
 import numpy as np
 import pytest
 
-from easyav1_tpu import native
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1.backend import AV1Backend
-from easyav1_tpu.video.av1.cdf import CdfContext
-from easyav1_tpu.video.av1.headers import split_obus
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.tile import FramePlan, TileDecoder
+from easyav1 import native
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1.backend import AV1Backend
+from easyav1.video.av1.cdf import CdfContext
+from easyav1.video.av1.headers import split_obus
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.tile import FramePlan, TileDecoder
 
 from fixtures import CACHE
 from test_av1_real import real_fixture, NEAR_DEFAULT
@@ -52,7 +52,7 @@ def _plans_for(tag, w, h, crf=30, extra=()):
     tiles = []
     for obu in split_obus(pkt):
         if obu.type == C.OBU_SEQUENCE_HEADER:
-            from easyav1_tpu.video.av1.headers import (HeaderParser,
+            from easyav1.video.av1.headers import (HeaderParser,
                                                        parse_sequence_header)
             be.seq = parse_sequence_header(obu.payload)
             be.hp = HeaderParser(be.seq)

@@ -16,10 +16,10 @@ import subprocess
 import numpy as np
 
 from fixtures import CACHE, tool
-from easyav1_tpu.container import TrackInfo
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.av1_enc import EncBlock, encode_frame, make_ivf
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.container import TrackInfo
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.av1_enc import EncBlock, encode_frame, make_ivf
+from easyav1.video.av1.backend import AV1Backend
 
 W = H = 64
 
@@ -108,7 +108,7 @@ def _pipe_run(tag, blocks, q=60):
     the residual planes) and require no C-recon fallback."""
     import os
 
-    from easyav1_tpu import native
+    from easyav1 import native
 
     tu = encode_frame(W, H, q, blocks, adapt=True, screen=True)
     os.environ["EASYAV1_PIPE"] = "native"

@@ -6,7 +6,7 @@ parse desync once a 4:1 partition appears)."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
+from easyav1.video.av1 import constants as C
 from av1_synth import (EncBlock, assert_same, dav1d_decode_ivf, encode_frame,
                        make_ivf, my_decode_tu)
 

@@ -10,8 +10,8 @@ src/refmvs.c load_tmvs plays this role in the reference decoder).
 import numpy as np
 import pytest
 
-import easyav1_tpu.native as nat
-from easyav1_tpu.video.av1.mfmv import DIV_MULT, MAX_FRAME_DISTANCE
+import easyav1.native as nat
+from easyav1.video.av1.mfmv import DIV_MULT, MAX_FRAME_DISTANCE
 
 
 def _numpy_project(mi_rows, mi_cols, ref8, mv8, ref_off, start_to_cur,
@@ -62,7 +62,7 @@ def test_project_mvfield_matches_numpy(seed):
     lib = nat._load()
     if lib is None:
         pytest.skip("native library unavailable")
-    from easyav1_tpu.native import _vp
+    from easyav1.native import _vp
     rng = np.random.default_rng(seed)
     # mix tiny, odd-size and 8-lane-aligned fields; dense + wild MVs
     mi_rows = int(rng.integers(2, 80))

@@ -30,8 +30,8 @@ def _roundtrip(w, h, frames, gop, content=1):
     if not prefix.with_suffix(".yuv").exists():
         subprocess.run([str(tool("oracle")), str(out), str(prefix)],
                        check=True, capture_output=True)
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
     raw = np.fromfile(prefix.with_suffix(".yuv"), dtype=np.uint8)
     cw, ch = (w + 1) // 2, (h + 1) // 2
     per = w * h + 2 * cw * ch

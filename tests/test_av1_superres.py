@@ -6,7 +6,7 @@ decoder, compared bit-exact — locks the normative upscaler (spec
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
+from easyav1.video.av1 import constants as C
 from av1_synth import (assert_same, dav1d_decode_ivf, encode_frame,
                        make_ivf, my_decode_tu)
 from test_av1_lr import blocks_with_texture
@@ -61,7 +61,7 @@ def test_superres_with_lr():
 def test_superres_pallas_pipe(denom, monkeypatch):
     """Superres frames through the full device pipe: the sr_jax matmul
     upscaler runs between device CDEF and LR, no C-recon fallback."""
-    from easyav1_tpu import native
+    from easyav1 import native
 
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")
     native._PIPE_STATS.update(frames=0, fallbacks=0)
@@ -74,7 +74,7 @@ def test_superres_pallas_pipe(denom, monkeypatch):
 def test_superres_lr_pallas_pipe(monkeypatch):
     """Superres + loop restoration both on device in one frame (the
     upscaled deblocked snapshot feeds LR's stripe context)."""
-    from easyav1_tpu import native
+    from easyav1 import native
 
     W = C.RESTORE_WIENER
     monkeypatch.setenv("EASYAV1_PIPE", "pallas")

@@ -5,7 +5,7 @@ msac, syntax, contexts, transforms and intra prediction bit-exactly."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
+from easyav1.video.av1 import constants as C
 from av1_synth import (EncBlock, assert_same, dav1d_decode_ivf, encode_frame,
                        make_ivf, my_decode_tu, synth_compare)
 

@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parent.parent
 def _build_smoke():
     out = CACHE / "capi_smoke"
     srcs = [REPO / "tools" / "capi_smoke.c",
-            REPO / "easyav1_tpu" / "capi" / "easyav1_capi.c"]
+            REPO / "easyav1" / "capi" / "easyav1_capi.c"]
     if out.exists() and all(out.stat().st_mtime > s.stat().st_mtime
                             for s in srcs):
         return out

@@ -4,17 +4,17 @@ libaom fixtures (deblocked planes in, filtered planes out)."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.backend import AV1Backend
-from easyav1_tpu.video.av1.cdef_ref import Cdef
-from easyav1_tpu.video.av1.cdf import CdfContext
-from easyav1_tpu.video.av1.headers import (HeaderParser, parse_sequence_header,
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.backend import AV1Backend
+from easyav1.video.av1.cdef_ref import Cdef
+from easyav1.video.av1.cdf import CdfContext
+from easyav1.video.av1.headers import (HeaderParser, parse_sequence_header,
                                            split_obus)
-from easyav1_tpu.video.av1.lf_ref import LoopFilter
-from easyav1_tpu.video.av1.recon.cdef_jax import CdefDevice
-from easyav1_tpu.video.av1.recon_ref import FrameRecon
-from easyav1_tpu.video.av1.tile import FramePlan, TileDecoder
+from easyav1.video.av1.lf_ref import LoopFilter
+from easyav1.video.av1.recon.cdef_jax import CdefDevice
+from easyav1.video.av1.recon_ref import FrameRecon
+from easyav1.video.av1.tile import FramePlan, TileDecoder
 
 from test_av1_real import NEAR_DEFAULT, real_fixture
 

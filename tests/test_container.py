@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from easyav1_tpu.container import WebMDemuxer, TrackType
-from easyav1_tpu.container.mux import WebMMuxer, MuxTrack
-from easyav1_tpu.container import webm as W
-from easyav1_tpu.io.stream import MemoryStream
+from easyav1.container import WebMDemuxer, TrackType
+from easyav1.container.mux import WebMMuxer, MuxTrack
+from easyav1.container import webm as W
+from easyav1.io.stream import MemoryStream
 
 from fixtures import make_fixture, oracle_decode
 

@@ -1,5 +1,4 @@
-"""Demux long tail: BlockAdditions + ContentEncodings recognition
-(VERDICT r3 #7).
+"""Demux long tail: BlockAdditions + ContentEncodings recognition.
 
 Reference parity: nestegg.c:1753 (block additional parse) and
 nestegg.c:1252,1606 (track ContentEncodings: header-strip compression
@@ -8,9 +7,9 @@ applied per block, encrypted tracks refused cleanly).
 
 import numpy as np
 
-from easyav1_tpu.container import TrackType, WebMDemuxer
-from easyav1_tpu.container.mux import MuxTrack, WebMMuxer
-from easyav1_tpu.io.stream import MemoryStream
+from easyav1.container import TrackType, WebMDemuxer
+from easyav1.container.mux import MuxTrack, WebMMuxer
+from easyav1.io.stream import MemoryStream
 
 
 def _mux_with(track_kwargs=None, additions=None, n=4):

@@ -4,8 +4,8 @@ The C entropy decoder exports one record per intra pred unit
 (av1_recon.c:av1_export_pred_units) with every irregular decision
 resolved host-side; recon/exec_ref.py replays them.  These tests pin
 the contract: the replayed planes must equal the native C recon
-bit-for-bit (raw recon, loop filter and CDEF off).  The pallas device
-kernel implements the same contract.
+bit-for-bit (raw recon, loop filter and CDEF off).  The device executor
+(recon/jax_exec.py) implements the same contract.
 """
 
 import ctypes
@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 
 from fixtures import make_fixture
-import easyav1_tpu.native as nat
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1.backend import AV1Backend
+import easyav1.native as nat
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1.backend import AV1Backend
 
 
 def _first_keyframe_compare(path):
@@ -54,7 +54,7 @@ def _first_keyframe_compare(path):
         assert rc == 0
         br = nat.export_frame_bridge(seq, hdr, tiles)
         assert br is not None, "bridge export declined"
-        from easyav1_tpu.video.av1.recon.exec_ref import UnitExecutor
+        from easyav1.video.av1.recon.exec_ref import UnitExecutor
         ex = UnitExecutor(hdr.mi_rows, hdr.mi_cols, ssx, ssy,
                           seq.color.bitdepth, seq.color.num_planes)
         res_pl = ex.residual_planes(br["txs"], br["coeffs"])

@@ -6,9 +6,9 @@ restricted range, odd dims, 10-bit)."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1.fg_ref import FilmGrain
-from easyav1_tpu.video.av1.headers import FilmGrainParams
-from easyav1_tpu.video.av1.recon.fg_jax import DeviceFilmGrain
+from easyav1.video.av1.fg_ref import FilmGrain
+from easyav1.video.av1.headers import FilmGrainParams
+from easyav1.video.av1.recon.fg_jax import DeviceFilmGrain
 
 
 class _Color:
@@ -124,7 +124,7 @@ def test_fg_jax_device_pipe_e2e(monkeypatch):
     DeviceFilmGrain and the frame stays bit-exact vs dav1d."""
     from av1_synth import (assert_same, dav1d_decode_ivf, encode_frame,
                            make_ivf, my_decode_tu)
-    from easyav1_tpu.video.av1 import constants as C
+    from easyav1.video.av1 import constants as C
     rng = np.random.default_rng(11)
     from av1_synth import EncBlock
     blocks = []

@@ -10,8 +10,8 @@ import os
 import numpy as np
 import pytest
 
-from easyav1_tpu.container import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.container import TrackType, WebMDemuxer
+from easyav1.video.av1.backend import AV1Backend
 
 from fixtures import CACHE, tool
 

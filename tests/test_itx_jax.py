@@ -8,11 +8,11 @@ the int64 numpy oracle bit-for-bit.
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1 import tables as T
-from easyav1_tpu.video.av1.recon.itx_jax import itx_batch
-from easyav1_tpu.video.av1.recon_ref import _TX_1D, inverse_transform
-from easyav1_tpu.video.av1.tile import TxBlock
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1 import tables as T
+from easyav1.video.av1.recon.itx_jax import itx_batch
+from easyav1.video.av1.recon_ref import _TX_1D, inverse_transform
+from easyav1.video.av1.tile import TxBlock
 
 
 def _legal(tx_size, tx_type):

@@ -4,8 +4,8 @@ bit-exact, on real libaom fixtures (unfiltered recon planes in)."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1.lf_ref import LoopFilter
-from easyav1_tpu.video.av1.recon.lf_jax import LoopFilterDevice
+from easyav1.video.av1.lf_ref import LoopFilter
+from easyav1.video.av1.recon.lf_jax import LoopFilterDevice
 
 from test_av1_real import NEAR_DEFAULT
 from test_cdef_jax import _pre_cdef_planes  # reuse the decode harness
@@ -14,15 +14,15 @@ from test_cdef_jax import _pre_cdef_planes  # reuse the decode harness
 def _pre_lf_planes(tag, w, h, crf=30, extra=()):
     # _pre_cdef_planes applies LF; we need pre-LF planes, so rebuild
     # the recon without LF by re-running its pipeline pieces
-    from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1 import constants as C
-    from easyav1_tpu.video.av1.backend import AV1Backend
-    from easyav1_tpu.video.av1.cdf import CdfContext
-    from easyav1_tpu.video.av1.headers import (HeaderParser,
+    from easyav1.container.webm import TrackType, WebMDemuxer
+    from easyav1.video.av1 import constants as C
+    from easyav1.video.av1.backend import AV1Backend
+    from easyav1.video.av1.cdf import CdfContext
+    from easyav1.video.av1.headers import (HeaderParser,
                                                parse_sequence_header,
                                                split_obus)
-    from easyav1_tpu.video.av1.recon_ref import FrameRecon
-    from easyav1_tpu.video.av1.tile import FramePlan, TileDecoder
+    from easyav1.video.av1.recon_ref import FrameRecon
+    from easyav1.video.av1.tile import FramePlan, TileDecoder
     from test_av1_real import real_fixture
 
     out, _ = real_fixture(tag, w, h, crf, 1, extra)

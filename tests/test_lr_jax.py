@@ -6,9 +6,9 @@ frames, odd dims and bitdepths."""
 import numpy as np
 import pytest
 
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.lr_ref import LoopRestoration
-from easyav1_tpu.video.av1.recon.lr_jax import DeviceLoopRestoration
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.lr_ref import LoopRestoration
+from easyav1.video.av1.recon.lr_jax import DeviceLoopRestoration
 
 
 class _Color:

@@ -6,8 +6,8 @@ each stream bit-exact vs its ordinary single-stream decode."""
 import jax
 import pytest
 
-from easyav1_tpu.parallel.mesh import make_mesh
-from easyav1_tpu.parallel.multistream_av1 import run_multistream
+from easyav1.parallel.mesh import make_mesh
+from easyav1.parallel.multistream_av1 import run_multistream
 
 
 def test_multistream_real_decode_dp():
@@ -34,7 +34,7 @@ def test_multistream_real_fixtures_dp():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from fixtures import make_fixture
-    from easyav1_tpu.parallel.multistream_av1 import run_multistream_real
+    from easyav1.parallel.multistream_av1 import run_multistream_real
 
     n = len(jax.devices())
     if n < 2:

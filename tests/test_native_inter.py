@@ -12,14 +12,14 @@ port (native/av1_tile.c + av1_inter.h) to it exactly.
 import numpy as np
 import pytest
 
-import easyav1_tpu.native as nat
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.native.cdf_layout import blob_to_cdf, cdf_to_blob
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1.backend import AV1Backend
-from easyav1_tpu.video.av1.cdf import CdfContext
-from easyav1_tpu.video.av1.headers import parse_sequence_header, split_obus
-from easyav1_tpu.video.av1.tile import TileDecoder
+import easyav1.native as nat
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.native.cdf_layout import blob_to_cdf, cdf_to_blob
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1.backend import AV1Backend
+from easyav1.video.av1.cdf import CdfContext
+from easyav1.video.av1.headers import parse_sequence_header, split_obus
+from easyav1.video.av1.tile import TileDecoder
 
 from test_av1_inter_real import inter_fixture, SCOPE_OPTS, COMP_SCOPE, \
     COMP_BASE
@@ -84,7 +84,7 @@ def _diff_stream(tag, **kw):
         for obu in split_obus(pk):
             if obu.type == C.OBU_SEQUENCE_HEADER:
                 be.seq = parse_sequence_header(obu.payload)
-                from easyav1_tpu.video.av1.headers import HeaderParser
+                from easyav1.video.av1.headers import HeaderParser
                 be.hp = HeaderParser(be.seq)
                 seq = be.seq
             elif obu.type == C.OBU_FRAME:
@@ -97,7 +97,7 @@ def _diff_stream(tag, **kw):
                         hdr.ref_frame_idx[hdr.primary_ref_frame]]
                 tpl = None
                 if hdr.use_ref_frame_mvs:
-                    from easyav1_tpu.video.av1.mfmv import \
+                    from easyav1.video.av1.mfmv import \
                         setup_motion_field
                     tpl = setup_motion_field(
                         hdr, seq,

@@ -21,7 +21,7 @@ REPO = Path(__file__).resolve().parent.parent
 def _build_player():
     out = CACHE / "easyav1_player"
     srcs = [REPO / "tools" / "easyav1_player.c",
-            REPO / "easyav1_tpu" / "capi" / "easyav1_capi.c"]
+            REPO / "easyav1" / "capi" / "easyav1_capi.c"]
     if out.exists() and all(out.stat().st_mtime > s.stat().st_mtime
                             for s in srcs):
         return out
@@ -153,8 +153,7 @@ def test_player_ui_selftest():
     """UI overlay core (tools/player_ui.h): time-bar state machine
     transitions, bitmap-font rasterization and play/pause morph render
     to a deterministic canvas (reference easyav1_player.c:36-49 font,
-    :922-1054 time-bar animation, :1056-1120 morph — feature checklist
-    VERDICT r3 #8)."""
+    :922-1054 time-bar animation, :1056-1120 morph)."""
     player = _build_player()
     r = subprocess.run([str(player), "--ui-selftest"],
                        capture_output=True, text=True, env=_env(),

@@ -1,4 +1,4 @@
-"""Tile-parallel entropy decode (VERDICT r3 #4; dav1d thread_task.c
+"""Tile-parallel entropy decode (dav1d thread_task.c
 role, reference cmake/dav1d.cmake:993).
 
 Multi-tile streams decoded with N workers must be bit-exact against
@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 
 from test_av1_multitg import _fixture
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer
-from easyav1_tpu.video.av1.backend import AV1Backend
+from easyav1.container.webm import TrackType, WebMDemuxer
+from easyav1.video.av1.backend import AV1Backend
 
 
 def _decode_all(path, threads):

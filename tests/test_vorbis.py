@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from easyav1_tpu.container import WebMDemuxer, TrackType
-from easyav1_tpu.audio.vorbis import VorbisDecoder
-from easyav1_tpu.audio.vorbis.bitreader import BitReader, ilog, lookup1_values
-from easyav1_tpu.audio.vorbis.codebook import assign_codewords
-from easyav1_tpu.audio.vorbis.device import VorbisDeviceSynth
+from easyav1.container import WebMDemuxer, TrackType
+from easyav1.audio.vorbis import VorbisDecoder
+from easyav1.audio.vorbis.bitreader import BitReader, ilog, lookup1_values
+from easyav1.audio.vorbis.codebook import assign_codewords
+from easyav1.audio.vorbis.device import VorbisDeviceSynth
 
 from fixtures import make_fixture, vorbis_oracle_decode, have_vorbis_oracle
 

@@ -6,7 +6,7 @@
 #include <stdlib.h>
 #include <string.h>
 
-#include "../easyav1_tpu/capi/easyav1.h"
+#include "../easyav1/capi/easyav1.h"
 
 static int g_video_cb_frames = 0;
 static int g_audio_cb_frames = 0;

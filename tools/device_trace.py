@@ -1,4 +1,4 @@
-"""Capture an XPlane device trace of the TPU pipes (SURVEY §5.1).
+"""Capture an XPlane device trace of the device pipes (SURVEY §5.1).
 
 The host-side complement is tools/profile_stages.py (per-stage rdtsc
 breakdown of the native path); this tool covers the device side: it
@@ -6,24 +6,20 @@ runs the jitted device workloads under jax.profiler.trace so per-kernel
 device timing, HLO names and memory traffic land in a TensorBoard/
 XProf-loadable logdir.  The reference has no analog (its only
 profiling is the benchmark's wall clock, tools/easyav1_benchmark.c:124);
-this is the TPU-native replacement.
+this is the device-side replacement.
 
 Usage: python tools/device_trace.py [logdir] [av1|vorbis|all]
-  logdir defaults to /tmp/easyav1_trace; open with
+  logdir defaults to $TMPDIR/easyav1_trace; open with
   `tensorboard --logdir <logdir>` (Profile tab) or xprof.
 """
 
-import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-# persistent XLA compile cache (same dir as bench.py): repeat trace runs
-# must not repay the full JIT compile cost before the traced steps
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      str(REPO / ".jax_cache"))
 
 
 def trace_av1(steps: int = 3):
@@ -42,7 +38,7 @@ def trace_av1(steps: int = 3):
 def trace_vorbis(steps: int = 3):
     """Vorbis device synthesis (coupling → envelope → IMDCT → OLA)."""
     import numpy as np
-    from easyav1_tpu.parallel.mesh import make_mesh, MultiStreamVorbisSynth
+    from easyav1.parallel.mesh import make_mesh, MultiStreamVorbisSynth
 
     mesh = make_mesh(1, tp=1)
     vs = MultiStreamVorbisSynth(mesh, streams=2, channels=2,
@@ -63,9 +59,16 @@ def _block(x):
 
 
 def main():
-    logdir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/easyav1_trace"
+    logdir = sys.argv[1] if len(sys.argv) > 1 else str(
+        Path(tempfile.gettempdir()) / "easyav1_trace")
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
     import jax
+
+    from easyav1.utils import compile_cache
+
+    # repeat trace runs must not repay the JIT compiles before the
+    # traced steps
+    compile_cache.enable()
 
     t_start = time.time()
     with jax.profiler.trace(logdir):

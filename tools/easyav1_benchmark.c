@@ -12,7 +12,7 @@
 #include <string.h>
 #include <time.h>
 
-#include "../easyav1_tpu/capi/easyav1.h"
+#include "../easyav1/capi/easyav1.h"
 
 static double now_ms(void) {
     struct timespec ts;

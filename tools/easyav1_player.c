@@ -28,7 +28,7 @@
 #include <stdint.h>
 #include <time.h>
 
-#include "../easyav1_tpu/capi/easyav1.h"
+#include "../easyav1/capi/easyav1.h"
 
 #ifdef PLAYER_BACKEND_SDL3
 #include <SDL3/SDL.h>

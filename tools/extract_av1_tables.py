@@ -15,7 +15,7 @@ The extracted values are validated two ways:
     output vs libdav1d on libaom-encoded fixtures (tests/test_av1*.py) —
     a single wrong table desynchronizes the arithmetic decoder instantly.
 
-Output: easyav1_tpu/video/av1/tables_data.npz (committed artifact).
+Output: easyav1/video/av1/tables_data.npz (committed artifact).
 Offsets below are for Debian libaom 3.6.0 and only matter when
 regenerating; at runtime only the .npz is used.
 """
@@ -28,7 +28,7 @@ import numpy as np
 
 LIBAOM = "/usr/lib/x86_64-linux-gnu/libaom.so.3"
 OUT = Path(__file__).resolve().parent.parent / \
-    "easyav1_tpu/video/av1/tables_data.npz"
+    "easyav1/video/av1/tables_data.npz"
 
 
 def load_rodata() -> np.ndarray:

@@ -15,7 +15,7 @@ Validation: structural row invariants here + bit-exact decode vs
 libdav1d on inter fixtures (tests/test_av1_inter.py) — any wrong table
 desynchronizes the symbol decoder immediately.
 
-Appends to easyav1_tpu/video/av1/tables_data.npz.
+Appends to easyav1/video/av1/tables_data.npz.
 """
 
 import re
@@ -27,7 +27,7 @@ import numpy as np
 
 LIBAOM = "/usr/lib/x86_64-linux-gnu/libaom.so.3"
 OUT = Path(__file__).resolve().parent.parent / \
-    "easyav1_tpu/video/av1/tables_data.npz"
+    "easyav1/video/av1/tables_data.npz"
 RBASE = 0x42D000                       # .rodata VA of Debian libaom 3.6
 
 

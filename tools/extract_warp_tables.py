@@ -8,7 +8,7 @@ signatures (row sums, monotonicity, exact known prefixes) rather than
 fixed offsets, so this is robust across libaom builds.
 
 Appends: warped_filter (193,8) int16, div_lut (257,) uint16,
-obmc_mask_{2,4,8,16,32} uint8 to easyav1_tpu/video/av1/tables_data.npz.
+obmc_mask_{2,4,8,16,32} uint8 to easyav1/video/av1/tables_data.npz.
 """
 
 import subprocess
@@ -18,7 +18,7 @@ import numpy as np
 
 LIBAOM = "/usr/lib/x86_64-linux-gnu/libaom.so.3"
 OUT = Path(__file__).resolve().parent.parent / \
-    "easyav1_tpu/video/av1/tables_data.npz"
+    "easyav1/video/av1/tables_data.npz"
 
 
 def main():

@@ -23,9 +23,9 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
 
-from easyav1_tpu.container.mux import MuxTrack, WebMMuxer  # noqa: E402
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer  # noqa: E402
-from easyav1_tpu.video.av1.headers import (HeaderParser,  # noqa: E402
+from easyav1.container.mux import MuxTrack, WebMMuxer  # noqa: E402
+from easyav1.container.webm import TrackType, WebMDemuxer  # noqa: E402
+from easyav1.video.av1.headers import (HeaderParser,  # noqa: E402
                                            parse_sequence_header)
 
 
@@ -174,7 +174,7 @@ class Rewriter:
 def main():
     import os
     os.environ.setdefault("EASYAV1_NATIVE", "0")
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    from easyav1.video.av1.backend import AV1Backend
     from fixtures import tool
 
     src = sys.argv[1]

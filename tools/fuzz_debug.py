@@ -12,12 +12,12 @@ sys.path.insert(0, "tests")
 sys.path.insert(0, ".")
 
 from fixtures import CACHE, tool  # noqa: E402
-from easyav1_tpu.container.webm import TrackInfo  # noqa: E402
-from easyav1_tpu.video.av1 import constants as C  # noqa: E402
-from easyav1_tpu.video.av1 import recon_ref  # noqa: E402
-from easyav1_tpu.video.av1.av1_enc import make_ivf  # noqa: E402
-from easyav1_tpu.video.av1.av1_enc_inter import encode_inter_sequence  # noqa: E402
-from easyav1_tpu.video.av1.backend import AV1Backend  # noqa: E402
+from easyav1.container.webm import TrackInfo  # noqa: E402
+from easyav1.video.av1 import constants as C  # noqa: E402
+from easyav1.video.av1 import recon_ref  # noqa: E402
+from easyav1.video.av1.av1_enc import make_ivf  # noqa: E402
+from easyav1.video.av1.av1_enc_inter import encode_inter_sequence  # noqa: E402
+from easyav1.video.av1.backend import AV1Backend  # noqa: E402
 import fuzz_inter as FZ  # noqa: E402
 
 NAMES = {v: k for k, v in vars(C).items()

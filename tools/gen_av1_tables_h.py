@@ -11,9 +11,9 @@ import numpy as np
 
 sys.path.insert(0, "/root/repo")
 
-from easyav1_tpu.video.av1 import constants as C
-from easyav1_tpu.video.av1 import tables as T
-from easyav1_tpu.video.av1.cdf import CdfContext
+from easyav1.video.av1 import constants as C
+from easyav1.video.av1 import tables as T
+from easyav1.video.av1.cdf import CdfContext
 
 
 def emit_array(out, name, arr, ctype="uint16_t"):
@@ -178,9 +178,9 @@ def main():
                np.array([max(0, 64 - 2 * C.BLOCK_H4[b]) for b in range(22)]),
                "int8_t")
 
-    with open("easyav1_tpu/native/av1_tables.h", "w") as f:
+    with open("easyav1/native/av1_tables.h", "w") as f:
         f.write("\n".join(out))
-    print("wrote easyav1_tpu/native/av1_tables.h",
+    print("wrote easyav1/native/av1_tables.h",
           sum(len(l) for l in out) // 1024, "KB")
 
 

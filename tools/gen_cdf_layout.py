@@ -1,10 +1,10 @@
 """Generate the shared CDF-state layout for the native decoder.
 
 Emits:
-  - easyav1_tpu/native/av1_cdf_state.h : `CdfState` struct containing
+  - easyav1/native/av1_cdf_state.h : `CdfState` struct containing
     EVERY adaptive CDF table of the Python CdfContext (cdf.py), in a
     fixed canonical order, plus generated cdf_init()/cdf_reset_counters()
-  - easyav1_tpu/native/cdf_layout.py : the same layout as a Python list
+  - easyav1/native/cdf_layout.py : the same layout as a Python list
     [(key, shape)] so CdfContext <-> C blob conversion is loss-free.
 
 The struct is entirely uint16_t arrays, so its memory image is the
@@ -22,7 +22,7 @@ import numpy as np
 
 sys.path.insert(0, "/root/repo")
 
-from easyav1_tpu.video.av1 import tables as T
+from easyav1.video.av1 import tables as T
 
 # canonical order — MUST match cdf.py CdfContext.default key population
 COEF_KEYS = ["txb_skip", "eob_extra", "dc_sign", "coeff_base_eob",
@@ -130,7 +130,7 @@ def main():
     h.append("    }")
     h.append("}")
     h.append("")
-    with open("easyav1_tpu/native/av1_cdf_state.h", "w") as f:
+    with open("easyav1/native/av1_cdf_state.h", "w") as f:
         f.write("\n".join(h))
 
     # --- Python layout -------------------------------------------------
@@ -171,7 +171,7 @@ def cdf_to_blob(ctx) -> bytes:
 
 def blob_to_cdf(blob):
     \"\"\"Packed blob -> CdfContext (lists, decoder-mutable).\"\"\"
-    from easyav1_tpu.video.av1.cdf import CdfContext
+    from easyav1.video.av1.cdf import CdfContext
     flat = np.frombuffer(blob, np.uint16)
     assert flat.size == CDF_TOTAL_U16, flat.size
     t = {}
@@ -182,7 +182,7 @@ def blob_to_cdf(blob):
         off += n
     return CdfContext(t)
 """)
-    with open("easyav1_tpu/native/cdf_layout.py", "w") as f:
+    with open("easyav1/native/cdf_layout.py", "w") as f:
         f.write("\n".join(p))
     print(f"wrote av1_cdf_state.h + cdf_layout.py: {len(lay)} tables, "
           f"{total} u16 ({total * 2 / 1024:.1f} KB)")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Generate easyav1_tpu/native/av1_itx_vec.h: GCC-vector-extension
+"""Generate easyav1/native/av1_itx_vec.h: GCC-vector-extension
 variants of the scalar inverse-transform kernels in av1_itx.h.
 
 The scalar kernels clamp every intermediate to [-(1<<(bd+7)),
@@ -19,7 +19,7 @@ import re
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent.parent / \
-    "easyav1_tpu/native/av1_itx.h"
+    "easyav1/native/av1_itx.h"
 OUT = SRC.parent / "av1_itx_vec.h"
 
 text = SRC.read_text()

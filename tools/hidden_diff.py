@@ -21,9 +21,9 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
 
-from easyav1_tpu.container.mux import MuxTrack, WebMMuxer  # noqa: E402
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer  # noqa: E402
-from easyav1_tpu.video.av1 import constants as C  # noqa: E402
+from easyav1.container.mux import MuxTrack, WebMMuxer  # noqa: E402
+from easyav1.container.webm import TrackType, WebMDemuxer  # noqa: E402
+from easyav1.video.av1 import constants as C  # noqa: E402
 
 
 def leb128(n: int) -> bytes:
@@ -61,9 +61,9 @@ def mux_prefix_plus_show(vt, pkts, upto, slot, dst):
 
 
 def main():
-    import easyav1_tpu.video.av1.backend as B
-    import easyav1_tpu.video.av1.tile as tilemod
-    from easyav1_tpu.video.av1.backend import AV1Backend
+    import easyav1.video.av1.backend as B
+    import easyav1.video.av1.tile as tilemod
+    from easyav1.video.av1.backend import AV1Backend
     from fixtures import tool
 
     src = sys.argv[1]

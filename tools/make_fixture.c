@@ -2,7 +2,7 @@
  *
  * Test-infrastructure tool: uses the system ffmpeg libraries (libaom-av1
  * encoder, libvorbis encoder, WebM muxer) to produce conformance fixtures
- * for the easyav1_tpu decoder. Mirrors the reference's recommended fixture
+ * for the easyav1 decoder. Mirrors the reference's recommended fixture
  * workflow (reference README.md:105-108: encode with ffmpeg svt-av1+vorbis).
  *
  * Usage:

@@ -1,6 +1,6 @@
 /* oracle — reference decode of a WebM file via libdav1d + libvorbis.
  *
- * Test-infrastructure tool: produces golden outputs the easyav1_tpu decoder
+ * Test-infrastructure tool: produces golden outputs the easyav1 decoder
  * must match (bit-exact video for 8bpc, float tolerance audio — the
  * conformance contract from BASELINE.json / SURVEY.md §4).
  *

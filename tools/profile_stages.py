@@ -34,7 +34,7 @@ STAGE_NAMES = [
 
 def _tsc_hz():
     import ctypes as ct
-    from easyav1_tpu import native
+    from easyav1 import native
     nl = native._load()
     if not hasattr(nl, "av1_rdtsc"):
         return 2.1e9  # /proc/cpuinfo model nominal
@@ -49,9 +49,9 @@ def _tsc_hz():
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "1080"
     import bench
-    from easyav1_tpu.container import TrackType, WebMDemuxer
-    from easyav1_tpu.video.av1.backend import AV1Backend
-    from easyav1_tpu import native
+    from easyav1.container import TrackType, WebMDemuxer
+    from easyav1.video.av1.backend import AV1Backend
+    from easyav1 import native
 
     if which == "4k":
         path = bench._av1_fixture(w=3840, h=2160, frames=24, fps=30,

@@ -16,14 +16,14 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
 
-from easyav1_tpu.container.webm import TrackType, WebMDemuxer  # noqa: E402
-from easyav1_tpu.video.av1 import constants as C  # noqa: E402
-from easyav1_tpu.video.av1 import tables as T  # noqa: E402
-from easyav1_tpu.video.av1.av1_enc_inter import InterTileEncoder  # noqa: E402
-from easyav1_tpu.video.av1.backend import AV1Backend  # noqa: E402
-from easyav1_tpu.video.av1.cdf import CdfContext  # noqa: E402
-from easyav1_tpu.video.av1.headers import split_obus  # noqa: E402
-from easyav1_tpu.video.av1.tile import FramePlan, TileDecoder  # noqa: E402
+from easyav1.container.webm import TrackType, WebMDemuxer  # noqa: E402
+from easyav1.video.av1 import constants as C  # noqa: E402
+from easyav1.video.av1 import tables as T  # noqa: E402
+from easyav1.video.av1.av1_enc_inter import InterTileEncoder  # noqa: E402
+from easyav1.video.av1.backend import AV1Backend  # noqa: E402
+from easyav1.video.av1.cdf import CdfContext  # noqa: E402
+from easyav1.video.av1.headers import split_obus  # noqa: E402
+from easyav1.video.av1.tile import FramePlan, TileDecoder  # noqa: E402
 
 
 class PlanReencoder(InterTileEncoder):
@@ -128,13 +128,13 @@ class PlanReencoder(InterTileEncoder):
     # -- exact partition replay from plan.part_log (handles AB/4 exts) --
 
     def encode_blocks(self, blocks):
-        from easyav1_tpu.video.av1.av1_enc import EncBlock  # noqa
+        from easyav1.video.av1.av1_enc import EncBlock  # noqa
         self._part_idx = 0
         self._blk_by_pos = {(b.r, b.c): b for b in blocks}
         return super().encode_blocks(blocks)
 
     def _encode_partition(self, r, c, bsize, blkmap):
-        from easyav1_tpu.video.av1.tile import (partition_subsize,
+        from easyav1.video.av1.tile import (partition_subsize,
                                                 mi_wlog2, _PART_ABOVE,
                                                 _PART_LEFT, TileDecoder)
         if r >= self.mi_rows or c >= self.mi_cols:
@@ -317,7 +317,7 @@ class PlanReencoder(InterTileEncoder):
 
 
 def blocks_from_plan(plan):
-    from easyav1_tpu.video.av1.av1_enc_inter import InterEncBlock
+    from easyav1.video.av1.av1_enc_inter import InterEncBlock
     out = []
     for b in plan.blocks:
         eb = InterEncBlock(
@@ -402,7 +402,7 @@ def main():
     dec = TileDecoder(seq, hdr, cdf, plan)
     tpl = None
     if hdr.use_ref_frame_mvs:
-        from easyav1_tpu.video.av1.mfmv import setup_motion_field
+        from easyav1.video.av1.mfmv import setup_motion_field
         tpl = setup_motion_field(
             hdr, seq, [s if s.valid else None for s in be.hp.refs],
             be._ref_tmvs)

@@ -5,7 +5,7 @@
  * vendored here); the resulting float PCM is the exact output easyav1's
  * audio path produces (vorbis_synthesis → blockin → pcmout,
  * reference easyav1.c:2434-2499), making it the conformance target for
- * easyav1_tpu's TPU Vorbis synthesis.
+ * easyav1's device Vorbis synthesis.
  *
  * Input (file arg 1): u32le packet_count, then per packet u32le len + bytes.
  *   Packets 0..2 must be the three Vorbis headers.
